@@ -1,4 +1,4 @@
-"""rna_algos_tpu: a TPU-native RNA bioinformatics framework.
+"""rna_algos_tpu: an RNA bioinformatics framework in JAX.
 
 Brand-new JAX/XLA implementation of the capability surface of heartsh/rna-algos
 (Rust, CPU): McCaskill base-pairing-probability partition functions under the

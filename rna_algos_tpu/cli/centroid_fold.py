@@ -23,7 +23,7 @@ from ..utils.output import fold_str, _fmt
 
 def build_parser():
     p = argparse.ArgumentParser(
-        prog="centroid_fold", description="gamma-centroid folding (TPU)"
+        prog="centroid_fold", description="gamma-centroid folding"
     )
     p.add_argument("-i", required=True, help="input FASTA file path")
     p.add_argument("-o", required=True, help="output directory path")
@@ -38,7 +38,7 @@ def build_parser():
     )
     p.add_argument(
         "--numerics", choices=("exact", "parity", "fast"), default=None,
-        help="exact arithmetic (default), reference-cubic parity, or hardware-fast",
+        help="reference cubics (exact, the default, and parity) or hardware-fast",
     )
     return p
 

@@ -25,14 +25,14 @@ HEADER = (
 
 def build_parser():
     p = argparse.ArgumentParser(
-        prog="durbin", description="pair-HMM match probabilities (TPU)"
+        prog="durbin", description="pair-HMM match probabilities"
     )
     p.add_argument("-i", required=True, help="input FASTA file path")
     p.add_argument("-o", required=True, help="output file path")
     p.add_argument("-t", type=int, default=None, help="worker hint (compat)")
     p.add_argument(
         "--numerics", choices=("exact", "parity", "fast"), default=None,
-        help="exact arithmetic (default), reference-cubic parity, or hardware-fast",
+        help="reference cubics (exact, the default, and parity) or hardware-fast",
     )
     return p
 

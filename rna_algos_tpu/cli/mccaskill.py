@@ -25,7 +25,7 @@ HEADER = (
 
 def build_parser():
     p = argparse.ArgumentParser(
-        prog="mccaskill", description="McCaskill basepair probabilities (TPU)"
+        prog="mccaskill", description="McCaskill basepair probabilities"
     )
     p.add_argument("-i", required=True, help="input FASTA file path")
     p.add_argument("-o", required=True, help="output file path")
@@ -33,7 +33,7 @@ def build_parser():
     p.add_argument("-c", action="store_true", help="use the CONTRAfold model")
     p.add_argument(
         "--numerics", choices=("exact", "parity", "fast"), default=None,
-        help="exact arithmetic (default), reference-cubic parity, or hardware-fast",
+        help="reference cubics (exact, the default, and parity) or hardware-fast",
     )
     return p
 

@@ -1,6 +1,6 @@
 """Shared constants of the framework.
 
-TPU-native re-creation of the reference prelude (`/root/reference/src/utils.rs:121-129`
+Re-creation of the reference prelude (`/root/reference/src/utils.rs:121-129`
 and the `rna-ss-params` shared utils: base/pair encodings, model hyper-constants).
 All DP code indexes bases as integers; `PSEUDO_BASE` doubles as the padding token so
 that padded batch tensors stay score-neutral (tables carry an explicit zero row for it).

@@ -1,4 +1,4 @@
-"""Gamma-centroid MEA structure estimator, TPU-native.
+"""Gamma-centroid MEA structure estimator in plain JAX.
 
 Re-design of `/root/reference/src/centroid_fold.rs:25-105`:
 

@@ -1,4 +1,4 @@
-"""Durbin 3-state pair-HMM posterior match probabilities, TPU-native.
+"""Durbin 3-state pair-HMM posterior match probabilities in plain JAX.
 
 Re-design of `/root/reference/src/durbin_algo.rs:73-242`:
 
@@ -6,7 +6,7 @@ Re-design of `/root/reference/src/durbin_algo.rs:73-242`:
   row fully vectorized; the within-row delete recurrence
   ``D[j] = ins[j] + lse(a[j], D[j-1] + ext)`` is a first-order linear
   recurrence in the (logsumexp, +) semiring and runs as a
-  `lax.associative_scan` (log-depth, VPU-friendly);
+  `lax.associative_scan` (log-depth);
 * the backward pass reuses the *same* row scan on coordinate-reversed
   sequences: the reference's "ends_sum -> 0" initialization
   (durbin_algo.rs:150-155) is exactly the forward recurrence with the two
@@ -189,42 +189,6 @@ def durbin_match_probs_batch(seqs1, ns1, seqs2, ns2, sc, N1, N2):
     return _durbin_match_probs_batch(
         seqs1, ns1, seqs2, ns2, sc, N1=N1, N2=N2, mode=get_mode()
     )
-
-
-def durbin_match_probs_batch_auto(seqs1, ns1, seqs2, ns2, sc, N1, N2,
-                                  backend=None):
-    """Dispatch to the fused pair-HMM kernel when it applies, else the row scan.
-
-    ``backend`` ("pallas"/"xla") overrides auto-detection, mirroring
-    models.mccaskill.mccaskill_bpp_batch_auto."""
-    import os
-
-    from ..ops import pallas_align as PA
-
-    forced = backend or os.environ.get("RNA_ALGOS_BACKEND")
-    if forced == "pallas":
-        use_pallas = True
-    elif forced == "xla":
-        use_pallas = False
-    else:
-        use_pallas = PA.pallas_available(N1, N2)
-    if use_pallas:
-        if (
-            get_mode() in ("fast", "exact")
-            and os.environ.get("RNA_ALGOS_FAST_IMPL", "prob") == "prob"
-        ):
-            # scaled probability-space kernels (ops/pallas_align_prob.py);
-            # the device-side rescale-retry loop covers every physical
-            # per-step log growth, so no host-side fallback is needed
-            from ..ops import pallas_align_prob as PAP
-
-            return PAP.durbin_match_probs_batch_pallas_prob(
-                seqs1, ns1, seqs2, ns2, sc, N=N1
-            )
-        return PA.durbin_match_probs_batch_pallas(
-            seqs1, ns1, seqs2, ns2, sc, N=N1
-        )
-    return durbin_match_probs_batch(seqs1, ns1, seqs2, ns2, sc, N1=N1, N2=N2)
 
 
 @partial(jax.jit, static_argnames=("N1", "N2", "mode"))

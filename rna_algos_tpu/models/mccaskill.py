@@ -1,4 +1,4 @@
-"""McCaskill partition-function DP (Turner 2004 + CONTRAfold v2.02), TPU-native.
+"""McCaskill partition-function DP (Turner 2004 + CONTRAfold v2.02) in plain JAX.
 
 Re-design of `/root/reference/src/mccaskill_algo.rs:247-723` as anti-diagonal
 wavefront scans:
@@ -19,7 +19,12 @@ wavefront scans:
   final ``expf`` into probability space.
 
 All shapes static; ``n`` (true length) is a traced scalar so the whole thing
-vmaps over a padded batch and pjits over a data mesh.
+vmaps over a padded batch and pjits over a data mesh.  This one scan is the
+only implementation and runs unchanged on every platform XLA compiles for.
+
+Numerics tiers (``numerics.get_mode()``, part of every jit key): "exact"
+(default) and "parity" both evaluate the reference's piecewise-cubic
+log-sum-exp; "fast" uses hardware ``logaddexp``/``exp``.
 """
 
 from functools import partial
@@ -369,10 +374,7 @@ def mccaskill_bpp_batch(seqs, ns, tbl, N, contra=False,
     With ``return_memos=True`` returns (bpp, memos) instead, where memos is
     the batched FoldScores contract (mccaskill_algo.rs:13-19,279): the
     per-loop score grids {"hairpin", "multibranch_close", "accessible"} in
-    left layout ``[b, i, d] = score(i, i+d)``, plus "presence".  The same
-    memo pytree is returned by every backend (see mccaskill_bpp_batch_pallas),
-    so downstream consumers keep the full (bpp, FoldScores) API on the fast
-    path too (VERDICT round 2, item 6).
+    left layout ``[b, i, d] = score(i, i+d)``, plus "presence".
     """
     return _mccaskill_bpp_batch(
         seqs, ns, tbl, N=N, contra=contra,
@@ -405,149 +407,6 @@ def _mccaskill_bpp_batch(seqs, ns, tbl, N, contra, allows_short_hairpins,
         return jax.vmap(one)(seqs, ns)
 
 
-@partial(jax.jit, static_argnames=("N", "contra", "mode"))
-def _batch_score_memos(seqs, ns, tbl, N, contra, mode):
-    """Batched FoldScores grids (hairpin/MBC/ACC), recomputed XLA-side.
-
-    The fused Pallas kernels consume these same grids pre-skewed inside
-    their precompute; recomputing the [i, d]-layout originals here is cheap
-    (O(N^2) table lookups, no DP) and keeps the memo contract identical
-    across backends."""
-    with force_mode(mode):
-        def one(seq, n):
-            pre = (
-                S.precompute_contra(seq, n, N, tbl)
-                if contra
-                else S.precompute_turner(seq, n, N, tbl)
-            )
-            return {
-                "hairpin": pre["H"],
-                "multibranch_close": pre["MBC"],
-                "accessible": pre["ACC"],
-            }
-
-        return jax.vmap(one)(seqs, ns)
-
-
-def mccaskill_bpp_batch_pallas(seqs, ns, tbl, N, contra=True,
-                               allows_short_hairpins=False,
-                               return_memos=False):
-    """Batch through the fused VMEM-resident Pallas kernels.
-
-    Same outputs as mccaskill_bpp_batch (incl. ``return_memos=True`` for the
-    batched FoldScores contract); requires a TPU backend and
-    pow-2 N <= 256 (whole-DP-state-in-VMEM budget, ops/pallas_fold.py).
-
-    In "exact" (default) and "fast" numerics modes both models run the
-    scaled probability-space kernels — sublane-stacked
-    G-seqs-per-grid-step (ops/pallas_fold_prob8.py) at N <= 256 for
-    BOTH models since round 5 (the merged-family Turner kernels fit the
-    VMEM budget that the round-4 three-sublane-window design exceeded;
-    measured +47% over per-seq at the Rfam bucket), per-sequence
-    otherwise (ops/pallas_fold_prob.py) — with automatic per-sequence
-    rescale retries.  Their sums are exact f32 arithmetic
-    (no LSE approximation at all); goldens pin them within the 5e-4
-    budget of the parity tier.  "parity" mode pins the reference's
-    piecewise-cubic log-space kernels (ops/pallas_fold.py) instead.
-    ``RNA_ALGOS_FAST_IMPL=prob1`` pins the per-sequence probability
-    kernels; ``=log`` pins the log-space kernels for any mode.
-    """
-    import os
-
-    impl = os.environ.get("RNA_ALGOS_FAST_IMPL", "prob")
-    if get_mode() in ("fast", "exact") and impl in ("prob", "prob1"):
-        from ..ops import pallas_fold_prob as PP
-
-        # The device-side rescale loop covers ln_sigma +- 5.4 (per-base
-        # log-Z in [-4.5, 6.3] — far beyond physical RNA), so no host-side
-        # validity check/fallback is needed; everything stays async.
-        if contra:
-            if impl == "prob" and N <= 256:
-                # sublane-stacked kernels (8 seqs per grid step; see
-                # ops/pallas_fold_prob8.py); batch padded to a multiple
-                # of 8 (static shapes — the pad is compile-time)
-                from ..ops import pallas_fold_prob8 as P8
-
-                B = seqs.shape[0]
-                pad = (-B) % P8.G
-                if pad:
-                    seqs_p = jnp.concatenate(
-                        [seqs, jnp.tile(seqs[:1], (pad, 1))], axis=0
-                    )
-                    ns_p = jnp.concatenate([ns, jnp.tile(ns[:1], (pad,))])
-                else:
-                    seqs_p, ns_p = seqs, ns
-                bppo, _ls = P8.mccaskill_contra_pallas_prob8(
-                    seqs_p, ns_p, tbl, N=N,
-                    allows_short_hairpins=allows_short_hairpins,
-                )
-                bppo = bppo[:B]
-            else:
-                bppo, _ls = PP.mccaskill_contra_pallas_prob(
-                    seqs, ns, tbl, N=N,
-                    allows_short_hairpins=allows_short_hairpins,
-                )
-        else:
-            from ..ops import pallas_fold_prob8 as P8
-
-            # stacked Turner opened to N=256 in round 5: the merged-family
-            # kernels (one aged lane-major window + block-diagonal common
-            # kernel, _turner_inside8m/_turner_outside8m) fit the VMEM
-            # budget that the round-4 three-sublane-window design exceeded
-            # (145 MB measured); N=256 runs single-span, one K=1 grid per
-            # G-group (see _turner_prob8_run_body).  Requires the merged
-            # path (_SPANS == 2 module default).
-            stacked_cap = 256 if P8._SPANS == 2 else 128
-            if impl == "prob" and N <= stacked_cap:
-                B = seqs.shape[0]
-                pad = (-B) % P8.G
-                if pad:
-                    seqs_p = jnp.concatenate(
-                        [seqs, jnp.tile(seqs[:1], (pad, 1))], axis=0
-                    )
-                    ns_p = jnp.concatenate([ns, jnp.tile(ns[:1], (pad,))])
-                else:
-                    seqs_p, ns_p = seqs, ns
-                bppo, _ls = P8.mccaskill_turner_pallas_prob8(
-                    seqs_p, ns_p, tbl, N=N
-                )
-                bppo = bppo[:B]
-            else:
-                bppo, _ls = PP.mccaskill_turner_pallas_prob(
-                    seqs, ns, tbl, N=N
-                )
-        bpp, presence = _prob_finish(bppo, ns, N=N)
-    else:
-        bpp, presence = _mccaskill_bpp_batch_pallas(
-            seqs, ns, tbl, N=N, contra=contra,
-            allows_short_hairpins=allows_short_hairpins, mode=get_mode(),
-        )
-    if return_memos:
-        memos = dict(
-            _batch_score_memos(seqs, ns, tbl, N=N, contra=contra,
-                               mode=get_mode())
-        )
-        memos["presence"] = presence
-        return bpp, memos
-    return bpp, presence
-
-
-@partial(jax.jit, static_argnames=("N",))
-def _prob_finish(bppo, ns, N):
-    """[d, i] probability table -> (square bpp, presence) per sequence.
-
-    The [i, d] -> square permutation runs through the fused Pallas unskew
-    (ops/pallas_skew.py inv=True) — as an XLA ``take_along_axis`` it was
-    a full gather pass over the (B, N, N) output (round 5)."""
-    from ..ops.pallas_skew import skew_pq_batch
-
-    bppo_left = jnp.swapaxes(bppo, 1, 2)
-    sq = skew_pq_batch([bppo_left], inv=True)[0]
-    j = jnp.arange(N)[None, None, :]
-    bpp = jnp.where(j < ns[:, None, None], sq, 0.0)
-    return bpp, bpp > 0.0
-
-
 def mccaskill_twoloop_memo(seq, n, tbl, N, contra=False):
     """On-demand per-sequence ``twoloop_scores`` memo.
 
@@ -557,7 +416,7 @@ def mccaskill_twoloop_memo(seq, n, tbl, N, contra=False):
     grid ``TL[d, i, a, b]`` = 2-loop score with outer pair (i, i+d) and
     inner pair (i+1+a, i+d-1-b), NEG_INF outside the valid window (loop
     length cap 30 per side / combined, inner span >= 1, j < n) — the same
-    vectorized score assembly the fused kernels consume per span.
+    vectorized score assembly the inside scan consumes per span.
 
     This grid is O(n^2 L^2) floats (~63 MB at N=128), which is why it is an
     on-demand per-sequence API and deliberately NOT part of the batch
@@ -597,104 +456,3 @@ def _twoloop_memo(seq, n, tbl, N, contra, mode):
 
         _, TLs = lax.scan(step, None, jnp.arange(N))
         return TLs
-
-
-@partial(
-    jax.jit, static_argnames=("N", "contra", "allows_short_hairpins", "mode")
-)
-def _mccaskill_bpp_batch_pallas(seqs, ns, tbl, N, contra,
-                                allows_short_hairpins, mode):
-    from ..ops import pallas_fold as PF
-
-    with force_mode(mode):
-        return _pallas_batch_body(seqs, ns, tbl, N, contra,
-                                  allows_short_hairpins, PF)
-
-
-def _pallas_batch_body(seqs, ns, tbl, N, contra, allows_short_hairpins, PF):
-    if contra:
-        bppo, _close, _ext, _one = PF.mccaskill_contra_pallas(
-            seqs, ns, tbl, N=N, allows_short_hairpins=allows_short_hairpins
-        )
-    else:
-        bppo, _close, _ext, _one = PF.mccaskill_turner_pallas(
-            seqs, ns, tbl, N=N
-        )
-    bppo_left = jnp.swapaxes(bppo, 1, 2)  # [d, i] -> [i, d]
-
-    def finish(P, n):
-        bpp = _square_from_left(expf(P), n, N, 0.0)
-        presence = (
-            _square_from_left(jnp.isfinite(P).astype(jnp.float32), n, N, 0.0)
-            > 0.5
-        )
-        return bpp, presence
-
-    return jax.vmap(finish)(bppo_left, ns)
-
-
-# validated on TPU v5e (Mosaic compile + parity vs the XLA scan <= 4e-5)
-_PALLAS_DEFAULT_ON = True
-# Turner kernels: Mosaic-validated on TPU v5e (parity <= 2.5e-5)
-_PALLAS_TURNER_ON = True
-
-
-def pallas_available(contra, N):
-    """Whether the fused kernel path applies (TPU placement, VMEM budget)."""
-    import os
-
-    from ..utils.platform import on_tpu
-
-    if not on_tpu():
-        return False
-    if N > 256:
-        # span-chunked prob kernels (ops/pallas_fold_prob.py): DP state
-        # resident, score tables streamed per row-chunk.  Prob-space only
-        # (exact/fast tiers); the parity tier's log kernels stay all-VMEM.
-        impl = os.environ.get("RNA_ALGOS_FAST_IMPL", "prob")
-        # N=2048 is CONTRA-only for now: the Turner outside kernel's 18
-        # streamed tables + 4 window scratches estimate ~139 MB against
-        # the 128 MB physical VMEM (unproven on hardware); Turner past
-        # 1024 takes the XLA scan until the window-merge redesign lands
-        return (
-            (N in (512, 1024) or (N == 2048 and bool(contra)))
-            and get_mode() in ("fast", "exact")
-            and impl.startswith("prob")
-        )
-    # Mosaic wants tile-friendly lane dims: 64/128/256 validated on v5e
-    # ("unsupported unaligned shape" at 96)
-    return (
-        (bool(contra) or _PALLAS_TURNER_ON)
-        and (N & (N - 1)) == 0
-    )
-
-
-def mccaskill_bpp_batch_auto(seqs, ns, tbl, N, contra=False,
-                             allows_short_hairpins=False, backend=None,
-                             return_memos=False):
-    """Dispatch to the Pallas kernels when they apply, else the XLA scan.
-
-    ``backend`` ("pallas"/"xla") overrides auto-detection — e.g. the mesh
-    runner passes "xla" when the mesh devices are CPU.  ``return_memos=True``
-    returns the batched FoldScores contract on either backend (see
-    mccaskill_bpp_batch)."""
-    import os
-
-    forced = backend or os.environ.get("RNA_ALGOS_BACKEND")
-    if forced == "pallas":
-        use_pallas = True
-    elif forced == "xla":
-        use_pallas = False
-    else:
-        use_pallas = _PALLAS_DEFAULT_ON and pallas_available(contra, N)
-    if use_pallas:
-        return mccaskill_bpp_batch_pallas(
-            seqs, ns, tbl, N=N, contra=contra,
-            allows_short_hairpins=allows_short_hairpins,
-            return_memos=return_memos,
-        )
-    return mccaskill_bpp_batch(
-        seqs, ns, tbl, N=N, contra=contra,
-        allows_short_hairpins=allows_short_hairpins,
-        return_memos=return_memos,
-    )

@@ -1,4 +1,4 @@
-"""Log-space numerics: CONTRAfold's piecewise-cubic fast-LSE, vectorized for TPU.
+"""Log-space numerics: CONTRAfold's piecewise-cubic fast-LSE, vectorized.
 
 The reference implements a streaming log-sum-exp built on two piecewise-cubic
 approximations from CONTRAfold (`/root/reference/src/utils.rs:579-655`):
@@ -8,12 +8,12 @@ approximations from CONTRAfold (`/root/reference/src/utils.rs:579-655`):
 * ``expf(x)`` ~= e^x for x < 0 (7 cubic segments; exact ``exp`` for x >= 0).
 
 We reproduce those polynomials exactly (same f32 coefficients and breakpoints) but
-evaluate them data-parallel on the VPU: the segment is chosen per lane by comparing
-against the breakpoint vector, the coefficients are gathered, and a single Horner
-evaluation runs for the whole tensor.
+evaluate them data-parallel as elementwise code: the segment is chosen per element
+by comparing against the breakpoint vector, the coefficients are selected, and a
+single Horner evaluation runs for the whole tensor.
 
-Reduction order: the reference accumulates terms one by one in program order.  On
-TPU we reduce along an axis with a balanced binary tree of the *same* pairwise
+Reduction order: the reference accumulates terms one by one in program order.
+Here we reduce along an axis with a balanced binary tree of the *same* pairwise
 combiner (``lse_pair``).  The combiner is symmetric, so the tree is well defined;
 re-association changes results only at the level of the cubic-approximation error
 (~1e-6 in log space).  Golden tests pin the resulting probabilities against a
@@ -34,27 +34,20 @@ from ..constants import LOGSUMEXP_THRESHOLD_UPPER, NEG_INF
 
 # --- numerics mode -----------------------------------------------------------
 #
-# Three tiers (PARAMS.md / docs/STATUS.md):
+# Three tiers, one DP implementation (the wavefront scans in models/):
 #
-# "exact" (default): reference-accurate results at production speed.  At the
-#   numerics level this evaluates the reference's piecewise cubics (identical
-#   to "parity"); at the *kernel dispatch* level (models/mccaskill.py,
-#   models/durbin.py) the TPU path runs the scaled probability-space kernels,
-#   whose sums are exact f32 arithmetic — mathematically tighter than the
-#   cubic LSE approximations they replace — and whose BPPs sit within the
-#   golden tolerance (5e-4) of the parity tier.  The XLA fallback (CPU,
-#   N > kernel budget) stays in cubic log space.
-# "parity": pin the reference's piecewise-cubic log-space evaluation
-#   everywhere, including the fused TPU kernels — the tier for bit-level
-#   investigations against the Rust reference (same cubics, balanced-tree
-#   reduction order; see module docstring).
-# "fast": hardware transcendentals (`jnp.logaddexp` / `jnp.exp`) on every
-#   path + the probability-space kernels — maximum throughput.
+# "exact" (default): the reference's piecewise cubics, balanced-tree
+#   reductions of the same pairwise combiner.  Identical arithmetic to
+#   "parity"; the name is kept for the library default.
+# "parity": the same cubics — the tier for bit-level investigations against
+#   the Rust reference.
+# "fast": hardware transcendentals (`jnp.logaddexp` / `jnp.exp`).
 #
-# The mode is read at *trace* time.  Every public jitted entry point threads
-# the current mode into its static cache key (see models/mccaskill.py,
-# models/durbin.py), so switching modes re-traces instead of silently reusing
-# a stale compilation.
+# Every tier stays within the 5e-4 golden budget of the oracle.  The mode is
+# read at *trace* time.  Every public jitted entry point threads the current
+# mode into its static cache key (see models/mccaskill.py, models/durbin.py),
+# so switching modes re-traces instead of silently reusing a stale
+# compilation.
 
 _VALID_MODES = ("exact", "parity", "fast")
 _MODE = os.environ.get("RNA_ALGOS_NUMERICS", "exact")
@@ -135,8 +128,8 @@ def _piecewise_cubic(x, breaks, coeffs):
     """Evaluate a piecewise cubic via per-break coefficient selects.
 
     Gather-free: each break upgrades the four Horner coefficients with a
-    `where` — pure VPU select chains, which XLA fuses into surrounding
-    elementwise code (a per-element gather would serialize on TPU).
+    `where` — pure select chains, which XLA fuses into surrounding
+    elementwise code.
     """
     x = x.astype(jnp.float32)
     c3 = jnp.full_like(x, float(coeffs[0][0]))
@@ -218,7 +211,7 @@ def lse_reduce(x, axis=-1):
     """Balanced-tree log-sum-exp reduction along ``axis`` using ``lse_pair``.
 
     The tree has static depth ceil(log2(n)); the axis is padded with -inf
-    (the identity). All shapes stay static, so this lowers to pure VPU code.
+    (the identity). All shapes stay static, so this lowers to elementwise code.
     """
     x = jnp.asarray(x, dtype=jnp.float32)
     axis = axis % x.ndim

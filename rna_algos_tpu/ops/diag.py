@@ -1,7 +1,7 @@
-"""Diagonal-layout access utilities for anti-diagonal wavefront DP on TPU.
+"""Diagonal-layout access utilities for anti-diagonal wavefront DP.
 
 The reference fills triangular DP tables cell-by-cell in span-major order
-(`/root/reference/src/mccaskill_algo.rs:290-292`).  The TPU formulation keeps
+(`/root/reference/src/mccaskill_algo.rs:290-292`).  This formulation keeps
 every state table dense and *diagonal-addressable* so that one `lax.scan` step
 updates a whole anti-diagonal with static shapes:
 
@@ -15,7 +15,6 @@ All helpers here are shape-static: dynamic span offsets go through
 whole DP compiles to one XLA program per (bucket, model).
 """
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -50,11 +49,6 @@ def write_col_padded(Mpad, col, values):
     )
 
 
-def col_padded(Mpad, col, N):
-    """v[i] = M[i, col] from a pad_table buffer (traced col; pad fill OOB)."""
-    return lax.dynamic_slice(Mpad, (_ROW_PAD, _COL_PAD + col), (N, 1))[:, 0]
-
-
 def unpad_table(Mpad, N):
     return Mpad[_ROW_PAD : _ROW_PAD + N, _COL_PAD : _COL_PAD + N]
 
@@ -84,71 +78,6 @@ def window_gather(Mpad, row_off, row_sign, col_off, col_sign, N):
     rows = i[:, None, None] + (a if row_sign > 0 else (W - 1 - a))[None, :, None]
     cols = (a[:, None] + b[None, :]) if col_sign > 0 else (m_max - a[:, None] - b[None, :])
     return S[rows, cols[None, :, :]]
-
-
-def read_diag(Mpad, row_off, col, N):
-    """v[i] = M[i + row_off, col] with traced ``col`` (and small static row_off)."""
-    S = lax.dynamic_slice(Mpad, (_ROW_PAD + row_off, _COL_PAD + col), (N, 1))
-    return S[:, 0]
-
-
-def skew_pq(M, fill=NEG_INF):
-    """V[p, d] = M[p, p + d]; p + d >= Q -> fill.
-
-    Converts a position-pair matrix (e.g. from ops.lut.sep_lookup) to the
-    [i, d] diagonal layout gather-free: log-depth power-of-two column shifts
-    gated on the bits of the row index.  The shifts run in place on the
-    (P, Q) buffer — columns a row shifts past its right edge only ever
-    supply ``fill``, so no widening is needed (halves the level traffic;
-    the skews are the precompute's HBM-bandwidth cost).
-    """
-    P, Q = M.shape
-    X = M
-    p = jnp.arange(P)[:, None]
-    k = 1
-    while k < P:
-        shifted = jnp.concatenate(
-            [X[:, k:], jnp.full((P, k), fill, M.dtype)], axis=1
-        )
-        X = jnp.where((p & k) != 0, shifted, X)
-        k *= 2
-    return X
-
-
-def shift_di(M, dd, ll, fill=0.0):
-    """OUT[d, i] = M[d + dd, i + ll] with ``fill`` outside (static shifts).
-
-    One fused roll+mask pass — used to derive [d, i] tables that are plain
-    translations of an already-skewed table (e.g. the outside-window stack
-    grid is the inside one at (span+2, i-1)), instead of paying another
-    log-depth skew."""
-    N = M.shape[0]
-    r = jnp.roll(M, (-dd, -ll), axis=(0, 1))
-    di = jnp.arange(N)[:, None]
-    ii = jnp.arange(N)[None, :]
-    ok = (di + dd >= 0) & (di + dd < N) & (ii + ll >= 0) & (ii + ll < N)
-    return jnp.where(ok, r, fill)
-
-
-def unskew_pq(M, fill=NEG_INF):
-    """V[p, c] = M[p, c - p]; c < p -> fill (right-skew of each row by its
-    row index).
-
-    Gather-free inverse companion of :func:`skew_pq`: log-depth power-of-two
-    right shifts gated on the bits of the row index.  Columns past the input
-    width read ``fill``.
-    """
-    P, Q = M.shape
-    X = M
-    p = jnp.arange(P)[:, None]
-    k = 1
-    while k < P:
-        shifted = jnp.concatenate(
-            [jnp.full((P, k), fill, M.dtype), X[:, :-k]], axis=1
-        )
-        X = jnp.where((p & k) != 0, shifted, X)
-        k *= 2
-    return X
 
 
 def shift_rows(M, shift, fill=NEG_INF):

@@ -1,119 +1,18 @@
-"""MXU-friendly small-table lookups.
+"""Small-table lookups for the per-sequence score-matrix precompute.
 
-The per-sequence score-matrix precompute gathers from tiny tables
-(5..5^4 entries) at every (i, d) cell.  TPU gathers run on the scalar unit
-and dominate the fused-path precompute; a one-hot contraction computes the
-same lookup exactly (one 1.0 per row, f32 mul/add with 0/1 is exact) and
-rides the MXU instead.
-
-``lookup(table, *idx)`` fuses the trailing index dims into one flat class
-index and contracts a one-hot of it against the flattened table.  Falls back
-to plain gathers off-TPU (where XLA gathers are fine and the one-hot wastes
-memory).
+The precompute reads tiny tables (5..5^4 entries) at every (i, d) cell.
+``lookup`` is a plain gather: exact on every platform, with no matrix
+product whose precision the compiler could lower.
 """
 
-import numpy as np
-import jax
 import jax.numpy as jnp
 
 
-def _use_onehot():
-    from ..utils.platform import on_tpu
-
-    return on_tpu()
-
-
-def sep_lookup(table, i_parts, j_parts, perm=None):
-    """M[p, q] = table[...] for position-separable index tuples.
-
-    ``i_parts``: tuple of (P,) int arrays — index components that are
-    functions of the row position only; ``j_parts``: tuple of (Q,) arrays for
-    the column position.  ``perm`` (optional) transposes ``table`` so its dims
-    line up as [*i_dims, *j_dims] when the natural order interleaves them.
-
-    The (P, Q) pair-lookup factors through two one-hot MXU contractions —
-    ``one_hot(ci) @ T @ one_hot(cj)^T`` — instead of P*Q scalar-unit
-    gathers; exact (each one-hot row selects a single f32 entry).  This keeps
-    even the 5^8-entry Turner 2x2-interior table cheap: the flat one-hot of
-    :func:`lookup` would need a (P*Q, 390625) operand, the separable form two
-    625-wide ones.  Off-TPU falls back to plain advanced indexing.
-    """
-    table = jnp.asarray(table)
-    if perm is not None:
-        table = jnp.transpose(table, perm)
-    ni = len(i_parts)
-    assert table.ndim == ni + len(j_parts), (table.shape, ni, len(j_parts))
-    i_parts = [jnp.asarray(x) for x in i_parts]
-    j_parts = [jnp.asarray(x) for x in j_parts]
-    if not _use_onehot():
-        idx = tuple(x[:, None] for x in i_parts) + tuple(
-            x[None, :] for x in j_parts
-        )
-        return table[idx]
-
-    def code(parts, dims):
-        c = parts[0]
-        for x, s in zip(parts[1:], dims[1:]):
-            c = c * s + x
-        return c
-
-    Ki = int(np.prod(table.shape[:ni], dtype=np.int64))
-    Kj = int(np.prod(table.shape[ni:], dtype=np.int64))
-    ci = code(i_parts, table.shape[:ni])
-    cj = code(j_parts, table.shape[ni:])
-    Ei = (
-        ci[:, None] == jnp.arange(Ki, dtype=ci.dtype)[None, :]
-    ).astype(table.dtype)
-    Ej = (
-        cj[:, None] == jnp.arange(Kj, dtype=cj.dtype)[None, :]
-    ).astype(table.dtype)
-    T = table.reshape(Ki, Kj)
-    # HIGH (3-pass hi/lo bf16 split) is BIT-EXACT for these dots, because
-    # one operand of each is a 0/1 one-hot whose lo-split is identically
-    # zero: hi@hi + hi@lo + lo@hi with E_lo = 0 reduces to
-    # E@(T_hi + T_lo) = E@T exactly (the f32 accumulator adds each selected
-    # entry's exact hi+lo decomposition; the dropped lo@lo term is E_lo@...
-    # = 0).  The second dot's left operand is general f32, but its RIGHT
-    # operand is the one-hot, so the same argument applies transposed.
-    # HIGHEST (6 passes) was measured at ~2x the MXU work for identical
-    # bits — pq-table assembly was the largest precompute stage
-    # (1.65 ms of the 8.5 ms CONTRA batch at B=192, round 5).
-    hi = jax.lax.Precision.HIGH
-    return jnp.dot(
-        jnp.dot(Ei, T, preferred_element_type=table.dtype, precision=hi),
-        Ej.T,
-        preferred_element_type=table.dtype,
-        precision=hi,
-    )
-
-
 def lookup(table, *idx):
-    """table[idx_0, ..., idx_k] with all idx broadcast to a common shape.
-
-    Exact equivalent of advanced-indexing gathers; one-hot MXU contraction
-    on TPU backends.
-    """
+    """table[idx_0, ..., idx_k] with all idx broadcast to a common shape."""
     table = jnp.asarray(table)
-    k = len(idx)
-    assert table.ndim == k, (table.shape, k)
-    idx = jnp.broadcast_arrays(*(jnp.asarray(x) for x in idx))
-    if not _use_onehot() or table.size > 4096:
-        return table[tuple(idx)]
-    flat_idx = idx[0]
-    for d in range(1, k):
-        flat_idx = flat_idx * table.shape[d] + idx[d]
-    K = int(np.prod(table.shape))
-    shape = flat_idx.shape
-    flat_idx = flat_idx.reshape(-1)
-    onehot = (
-        flat_idx[:, None] == jnp.arange(K, dtype=flat_idx.dtype)[None, :]
-    ).astype(table.dtype)
-    # NB: no explicit precision — XLA lowers this matrix-vector contraction
-    # off the MXU, so the f32 selection is already bit-exact (pinned by
-    # tests/test_lut.py::test_lookup_onehot_matches_gather on real hardware);
-    # forcing HIGHEST here would gratuitously invalidate every cached
-    # XLA-path program.
-    out = jnp.dot(
-        onehot, table.reshape(-1), preferred_element_type=table.dtype
-    )
-    return out.reshape(shape)
+    if table.ndim != len(idx):
+        raise ValueError(
+            f"lookup: {len(idx)} index arrays for a {table.ndim}-d table"
+        )
+    return table[tuple(jnp.asarray(x) for x in idx)]

@@ -2,7 +2,7 @@
 per-anti-diagonal 2-loop score tensors.
 
 The reference computes every score scalar-by-scalar inside the DP loops
-(`/root/reference/src/utils.rs:162-556`).  The TPU formulation splits each
+(`/root/reference/src/utils.rs:162-556`).  This formulation splits each
 scoring function into
 
 * **per-sequence precomputation** — everything that depends only on one

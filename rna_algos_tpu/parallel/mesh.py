@@ -2,7 +2,7 @@
 
 The reference's only parallelism is a scoped thread pool with one task per
 sequence (`/root/reference/src/bin/mccaskill_algo.rs:58,64-93`; SURVEY C16).
-The TPU equivalent is a 1-D ``data`` mesh over all chips: padded batches are
+Here it is a 1-D ``data`` mesh over all devices: padded batches are
 sharded along the batch axis with `NamedSharding`, every chip runs the same
 compiled wavefront program on its shard, score tables are replicated, and the
 only collective is the implicit result gather — nothing inside the DP loop.
@@ -70,25 +70,17 @@ def shard_batch(mesh, *arrays):
 def shard_map_batch(fn, mesh):
     """Wrap a batch function so each device runs it on its batch shard.
 
-    The per-shard function may be the fused Pallas path — shard_map hands
-    each device a local batch, so pallas_call's sequential grid runs
-    per-chip and the only collective is the output gather (off the DP
-    critical path, SURVEY §5).
+    shard_map hands each device a local batch; the only collective is the
+    output gather (off the DP critical path, SURVEY §5).  The result is
+    jitted: called bare, shard_map retraces ``fn`` on every call.
     """
-    from jax.sharding import PartitionSpec as P_
-
-    try:
-        smap = jax.shard_map
-    except AttributeError:  # older jax
-        from jax.experimental.shard_map import shard_map as smap
-
-    return smap(
+    return jax.jit(jax.shard_map(
         fn,
         mesh=mesh,
-        in_specs=(P_("data"), P_("data")),
-        out_specs=(P_("data"), P_("data")),
+        in_specs=(P("data"), P("data")),
+        out_specs=(P("data"), P("data")),
         check_vma=False,
-    )
+    ))
 
 
 def pad_to_multiple(arrays, multiple, pad_rows):

@@ -1,6 +1,6 @@
 """Batch execution: length bucketing + padded device batches (+ mesh sharding).
 
-TPU-native replacement for the reference's L3 batch layer: where the Rust CLIs
+Replacement for the reference's L3 batch layer: where the Rust CLIs
 spawn one thread-pool task per sequence (bin/mccaskill_algo.rs:64-93) and pick
 u8/u16 index width per max length (bin/mccaskill_algo.rs:70-90, SURVEY C17),
 we group sequences into static length buckets (one compiled XLA program per
@@ -12,7 +12,6 @@ device mesh (parallel/mesh.py).
 from functools import partial
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from ..constants import PSEUDO_BASE
@@ -20,26 +19,26 @@ from ..models import mccaskill as M
 from ..models import durbin as D
 from ..ops import scores as S
 from ..params import build_fold_score_sets, build_align_scores
+from ..utils.compile_cache import enable_compile_cache
 from . import mesh as mesh_lib
 
 # Static length buckets (compiled once each); the u8/u16 dispatch analog.
 BUCKETS = (64, 96, 128, 192, 256, 384, 512)
+# Lengths past this get a warning: the scan still runs, but slowly.
+LONG_WARN_LEN = 2048
 
 
 def pick_bucket(n):
     for b in BUCKETS:
         if n <= b:
             return b
-    if n > 2048:
-        # Past the last fused tier the only path is the XLA scan
-        # (~1 s/seq at N=512 and O(n^3) beyond) — warn instead of
-        # silently dispatching to it.
+    if n > LONG_WARN_LEN:
         import warnings
 
         warnings.warn(
-            f"sequence length {n} exceeds the fused-kernel tiers "
-            "(N <= 2048); falling back to the XLA wavefront scan, which "
-            "is orders of magnitude slower at this length",
+            f"sequence length {n} exceeds {LONG_WARN_LEN}: the wavefront "
+            "scan is O(n^3) in time and holds about ten dense (N, N) float32 "
+            "state tables per sequence in device memory",
             RuntimeWarning,
             stacklevel=2,
         )
@@ -61,6 +60,7 @@ class FoldEngine:
         from ..utils.debug import maybe_enable_from_env
 
         maybe_enable_from_env()
+        enable_compile_cache()
         self.contra = bool(uses_contra_model)
         self.allows_short_hairpins = bool(allows_short_hairpins)
         if self.contra:
@@ -81,29 +81,8 @@ class FoldEngine:
         order = sorted(range(len(seqs)), key=lambda k: len(seqs[k]))
         results = [None] * len(seqs)
         by_bucket = {}
-        # Fused-kernel buckets apply without a mesh AND on TPU meshes
-        # (shard_map hands each chip a local batch, so pallas_call runs
-        # per-chip; CPU meshes pin the XLA scan below).
-        mesh_on_tpu = (
-            self.mesh is not None
-            and self.mesh.devices.flat[0].platform != "cpu"
-        )
-        prefer_pow2 = (
-            self.mesh is None or mesh_on_tpu
-        ) and M.pallas_available(self.contra, 64)
         for k in order:
             N = pick_bucket(len(seqs[k]))
-            if prefer_pow2 and N in (96, 192):
-                N = 128 if N == 96 else 256  # fused buckets are power-of-two
-            elif (prefer_pow2 and N == 384
-                  and M.pallas_available(self.contra, 512)):
-                N = 512  # span-chunked fused kernels cover 256 < n <= 512
-            elif (prefer_pow2 and 512 < N <= 1024
-                  and M.pallas_available(self.contra, 1024)):
-                N = 1024  # span-chunked fused kernels, second tier
-            elif (prefer_pow2 and 1024 < N <= 2048
-                  and M.pallas_available(self.contra, 2048)):
-                N = 2048  # span-chunked fused kernels, third tier
             by_bucket.setdefault(N, []).append(k)
         for N, idxs in by_bucket.items():
             arr = pad_seqs([seqs[k] for k in idxs], N)
@@ -119,28 +98,22 @@ class FoldEngine:
             else:
                 true_b = len(idxs)
             if self.mesh is None:
-                bpp, presence = M.mccaskill_bpp_batch_auto(
+                bpp, presence = M.mccaskill_bpp_batch(
                     jnp.asarray(arr), jnp.asarray(ns), self.tbl, N=N,
                     contra=self.contra,
                     allows_short_hairpins=self.allows_short_hairpins,
                 )
             else:
-                # each device runs the (auto-selected) kernel on its shard;
-                # Mosaic is TPU-only, so CPU meshes pin the XLA scan.
-                # The wrapped callable is cached per bucket to avoid
-                # re-tracing every batch.
+                # each device runs the scan on its shard; the wrapped
+                # callable is cached per bucket to avoid re-tracing
                 sharded = self._sharded_cache.get(N)
                 if sharded is None:
-                    platform = self.mesh.devices.flat[0].platform
                     fn = partial(
-                        M.mccaskill_bpp_batch_auto, tbl=self.tbl, N=N,
+                        M.mccaskill_bpp_batch, tbl=self.tbl, N=N,
                         contra=self.contra,
                         allows_short_hairpins=self.allows_short_hairpins,
-                        backend="xla" if platform == "cpu" else None,
                     )
-                    sharded = mesh_lib.shard_map_batch(
-                        lambda s, n: fn(s, n), self.mesh
-                    )
+                    sharded = mesh_lib.shard_map_batch(fn, self.mesh)
                     self._sharded_cache[N] = sharded
                 bpp, presence = sharded(jnp.asarray(arr), jnp.asarray(ns))
             bpp = np.asarray(bpp)[:true_b]
@@ -155,6 +128,7 @@ class AlignEngine:
     """Bucket-compiled Durbin batch runner over sequence pairs."""
 
     def __init__(self, align_scores=None, mesh=None):
+        enable_compile_cache()
         sc = align_scores if align_scores is not None else build_align_scores()
         self.sc = {k: jnp.asarray(v) for k, v in sc.items()}
         self.mesh = mesh
@@ -165,20 +139,10 @@ class AlignEngine:
         ``seqs`` must already include the PSEUDO_BASE sentinels
         (bin/durbin_algo.rs:49-50). Returns {pair: probs[n1, n2]}.
         """
-        from ..ops import pallas_align as PA
-
         results = {}
         by_bucket = {}
-        prefer_fused = self.mesh is None and PA.pallas_available(64, 64)
         for (a, b) in pairs:
             key = (pick_bucket(len(seqs[a])), pick_bucket(len(seqs[b])))
-            if prefer_fused:
-                # fused pair-HMM buckets are square powers of two
-                n = max(key)
-                N = 64
-                while N < n:
-                    N *= 2
-                key = (N, N)
             by_bucket.setdefault(key, []).append((a, b))
         for (N1, N2), plist in by_bucket.items():
             s1 = pad_seqs([seqs[a] for a, _ in plist], N1)
@@ -200,10 +164,9 @@ class AlignEngine:
                 )
                 s1, n1, s2, n2 = mesh_lib.shard_batch(self.mesh, s1, n1, s2, n2)
             probs = np.asarray(
-                D.durbin_match_probs_batch_auto(
+                D.durbin_match_probs_batch(
                     jnp.asarray(s1), jnp.asarray(n1), jnp.asarray(s2),
                     jnp.asarray(n2), self.sc, N1=N1, N2=N2,
-                    backend="xla" if self.mesh is not None else None,
                 )
             )[:true_b]
             for slot, (a, b) in enumerate(plist):

@@ -51,6 +51,55 @@ def probs2str(prob_items) -> str:
     return "".join(f"{int(i)},{int(j)},{_fmt(p)} " for i, j, p in prob_items)
 
 
+def parse_triples(text):
+    """Parse CLI probability text into {record_id: {(i, j): p}}.
+
+    Inverse of the mccaskill/durbin CLI layout: ``#`` header lines, ``>id``
+    record lines (an index for mccaskill, an ``i,j`` pair id for durbin) and
+    ``i,j,p `` triples in any order.
+    """
+    import re
+
+    out = {}
+    cur = None
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        if line.startswith(">"):
+            cur = line[1:]
+            out[cur] = {}
+            continue
+        for tok in line.split():
+            m = re.match(r"^(\d+),(\d+),([-+0-9.eENaninf]+)$", tok)
+            if m is None or cur is None:
+                raise ValueError(f"record {cur!r}: malformed triple {tok!r}")
+            out[cur][(int(m.group(1)), int(m.group(2)))] = float(m.group(3))
+    return out
+
+
+def triples_max_diff(ref, got):
+    """Largest |p| difference of two parse_triples results.
+
+    Raises ValueError when the record ids or any record's pair set differ:
+    a missing or extra pair is a wrong answer, not a small one."""
+    if set(ref) != set(got):
+        raise ValueError(
+            f"record ids differ: {sorted(set(ref) ^ set(got))[:10]}"
+        )
+    worst = 0.0
+    for rid, rpairs in ref.items():
+        gpairs = got[rid]
+        if set(rpairs) != set(gpairs):
+            raise ValueError(
+                f"record {rid}: pair sets differ: "
+                f"{sorted(set(rpairs) ^ set(gpairs))[:10]}"
+            )
+        for key, p in rpairs.items():
+            worst = max(worst, abs(p - gpairs[key]))
+    return worst
+
+
 def _fmt(p) -> str:
     """Rust's `{}` f32 Display: shortest positional repr that round-trips f32."""
     import numpy as np

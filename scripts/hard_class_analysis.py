@@ -7,13 +7,9 @@ estimators.
 """
 import os, sys, json
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import numpy as np
-import jax
-jax.config.update("jax_default_device", jax.devices("cpu")[0])
-os.environ["RNA_ALGOS_BACKEND"] = "xla"
 
 from rna_algos_tpu.eval import synth
 from rna_algos_tpu.eval.baseline import threshold_pairs

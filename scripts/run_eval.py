@@ -19,9 +19,8 @@ import json
 import os
 import shutil
 import sys
+import tempfile
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,7 +30,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--sth", default=os.path.join(ROOT, "assets/synth_rfam_seed.sth"))
     ap.add_argument("--out", default=os.path.join(ROOT, "eval_artifacts"))
-    ap.add_argument("--work", default="/tmp/rna_algos_eval")
+    ap.add_argument("--work", default=os.path.join(tempfile.gettempdir(), "rna_algos_eval"))
     ap.add_argument("--families", type=int, default=20)
     args = ap.parse_args()
 

@@ -6,7 +6,7 @@ Faithful float32 re-derivation of the reference recurrences
 same streaming order with the same CONTRAfold approximations
 (tests/oracle/numerics_oracle).  Shares only the parameter *tables* with the
 production code; all DP arithmetic here is independent scalar Python and is used
-to generate golden BPP matrices for the vectorized TPU implementation.
+to generate golden BPP matrices for the vectorized JAX implementation.
 """
 
 import numpy as np

@@ -2,7 +2,7 @@
 
 Independent straightforward implementation of the CONTRAfold piecewise-cubic
 approximations and the streaming logsumexp with the exact semantics of
-`/root/reference/src/utils.rs:579-655`, used to validate the vectorized TPU
+`/root/reference/src/utils.rs:579-655`, used to validate the vectorized JAX
 numerics and to generate golden DP values. All arithmetic in np.float32.
 
 A **float64 true-math mode** (``f64_mode()``) swaps the cubics for

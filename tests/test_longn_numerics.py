@@ -1,29 +1,19 @@
-"""Long-n numerics anchors in CI (VERDICT round 2, items 5 and 9).
+"""Long-n numerics anchors: the wavefront scan against float64 truth.
 
 Pins, against the committed float64 true-math goldens
 (tests/golden/longn_f64.npz, generated by scripts/gen_longn_golden.py from
 the vectorized f64 oracle — itself validated cell-for-cell against the
-scalar brute-force-anchored oracle by tests/test_oracle.py):
-
-* the production fused-kernel path (exact tier) at n = 245 (N=256 resident
-  kernels) and n = 768 (N=1024 span-chunked tier) — the 513-1024 range
-  previously had no ground-truth anchor;
-* the XLA cubic scan at n = 245 — the documented ~2e-3 cubic drift bound
-  (BASELINE.md "Accuracy at long n"), so the exact-tier-beats-cubics claim
-  is test-enforced rather than living in scripts/.
+scalar brute-force-anchored oracle by tests/test_oracle.py), how far the
+reference cubics drift from the truth at n = 245 and n = 768.
 """
 
 import os
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 
-from rna_algos_tpu.constants import PSEUDO_BASE
-from rna_algos_tpu.models import mccaskill as M
-from rna_algos_tpu.ops import scores as S
-from rna_algos_tpu.params import build_fold_score_sets
+import chip_smoke
+from rna_algos_tpu.parallel.runner import FoldEngine
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "longn_f64.npz")
 
@@ -33,103 +23,28 @@ pytestmark = pytest.mark.skipif(
 )
 
 
-def _pad(seq, N):
-    out = np.full((1, N), PSEUDO_BASE, dtype=np.int32)
-    out[0, : len(seq)] = seq
-    return jnp.asarray(out), jnp.asarray(np.array([len(seq)], np.int32))
-
-
-def _tbl(contra):
-    return (
-        S.contra_table_pytree(build_fold_score_sets())
-        if contra
-        else S.turner_table_pytree()
-    )
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("model,contra", [("turner", False), ("contra", True)])
-@pytest.mark.parametrize("n,N", [(245, 256), (768, 1024)])
-def test_kernels_vs_f64_oracle(model, contra, n, N):
-    """Exact-tier production kernels vs float64 truth: <= 1e-4 at n=245
-    (resident kernels measured 3.9e-6 there; budget leaves headroom for
-    scale-retry variation) and <= 5e-4 at n=768 (span-chunked tier)."""
-    from tests.conftest import tpu_required_skip
-
-    reason = tpu_required_skip()
-    if reason:
-        pytest.skip(reason)
-    if not M.pallas_available(contra, N):
-        pytest.skip(f"fused path unavailable at N={N}")
-    from rna_algos_tpu import numerics
-
+def _fold(n, contra):
     g = np.load(GOLDEN)
-    seq = g[f"seq_{n}"]
-    ref = g[f"bpp_{n}_{model}"]
-    seqs, ns = _pad(seq, N)
-    with numerics.force_mode("exact"):
-        bpp, _ = M.mccaskill_bpp_batch_pallas(
-            seqs, ns, _tbl(contra), N=N, contra=contra
-        )
-    err = np.abs(np.asarray(bpp)[0, :n, :n] - ref).max()
-    budget = 1e-4 if n <= 512 else 5e-4
-    assert err < budget, (model, n, err)
-
-
-GOLDEN_1536 = os.path.join(
-    os.path.dirname(__file__), "golden", "longn_f64_1536.npz"
-)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("model,contra", [("turner", False), ("contra", True)])
-def test_kernels_vs_f64_oracle_n1536(model, contra):
-    """N=2048 tier anchor (VERDICT round 3, item 3): production exact-tier
-    BPPs at n=1536 vs the committed float64 truth (measured 8.3e-5 CONTRA
-    on hardware; budget 5e-4 as for the other chunked tiers)."""
-    from tests.conftest import tpu_required_skip
-
-    reason = tpu_required_skip()
-    if reason:
-        pytest.skip(reason)
-    if not os.path.exists(GOLDEN_1536):
-        pytest.skip("n=1536 golden not generated "
-                    "(scripts/gen_longn_golden_1536.py)")
-    n, N = 1536, 2048
-    if not M.pallas_available(contra, N):
-        pytest.skip(f"fused path unavailable at N={N}")
-    from rna_algos_tpu import numerics
-
-    g = np.load(GOLDEN_1536)
-    seq = g[f"seq_{n}"]
-    ref = g[f"bpp_{n}_{model}"]
-    seqs, ns = _pad(seq, N)
-    with numerics.force_mode("exact"):
-        bpp, _ = M.mccaskill_bpp_batch_pallas(
-            seqs, ns, _tbl(contra), N=N, contra=contra
-        )
-    err = np.abs(np.asarray(bpp)[0, :n, :n] - ref).max()
-    assert err < 5e-4, (model, n, err)
+    ((bpp, _),) = FoldEngine(uses_contra_model=contra).fold_batch(
+        [g[f"seq_{n}"].astype(np.int32)]
+    )
+    ref = g[f"bpp_{n}_{'contra' if contra else 'turner'}"]
+    return np.abs(bpp - ref).max()
 
 
 @pytest.mark.slow
 @pytest.mark.parametrize("model,contra", [("turner", False), ("contra", True)])
 def test_xla_cubics_drift_bound_n245(model, contra):
-    """The reference-cubic XLA scan drifts from f64 truth at long n
-    (measured 2.0e-3 at n=245, BASELINE.md) — pin the bound so the 'exact
-    tier is more accurate than reference numerics' claim stays enforced."""
-    g = np.load(GOLDEN)
-    seq = g["seq_245"]
-    ref = g["bpp_245_turner" if not contra else "bpp_245_contra"]
-    n, N = 245, 256
-    seqs, ns = _pad(seq, N)
-    from rna_algos_tpu import numerics
+    """The reference cubics drift from f64 truth at long n (measured on the
+    CPU: 7.8e-4 Turner, 1.8e-4 CONTRA at n = 245)."""
+    assert _fold(245, contra) < chip_smoke.LONGN_245_ATOL
 
-    with numerics.force_mode("parity"):
-        bpp, _ = M.mccaskill_bpp_batch(
-            seqs, ns, _tbl(contra), N=N, contra=contra
-        )
-    err = np.abs(np.asarray(bpp)[0, :n, :n] - ref).max()
-    # the cubics' own approximation error compounds over the LSE chain:
-    # well above the kernels' 3.9e-6, bounded by 5e-3
-    assert err < 5e-3, (model, err)
+
+@pytest.mark.slow
+@pytest.mark.parametrize("model,contra", [("turner", False), ("contra", True)])
+def test_cubics_error_n768_as_recorded(model, contra):
+    """The n = 768 float64 error that chip_smoke.py holds the GPU to is the
+    CPU's own, plus its slack."""
+    err = _fold(768, contra)
+    assert err <= chip_smoke.LONGN_768_CPU_ERR[model] + \
+        chip_smoke.LONGN_768_SLACK, err

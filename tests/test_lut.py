@@ -1,104 +1,45 @@
-"""One-hot MXU table lookups vs plain gathers, and the gather-free skew.
-
-``ops.lut`` replaces scalar-unit gathers with one-hot contractions on TPU
-(exact: each one-hot row selects a single f32 entry); off-TPU it falls back
-to advanced indexing.  These tests force both paths on CPU and assert
-bit-equality, and check ``ops.diag.skew_pq`` against an explicit gather.
-"""
+"""``ops.lut.lookup`` is plain indexing, for every score table the
+precompute in ``ops/scores.py`` reads through it."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rna_algos_tpu.constants import NEG_INF
-from rna_algos_tpu.ops import diag, lut
+from rna_algos_tpu.ops import lut
+from rna_algos_tpu.ops import scores as S
+from rna_algos_tpu.params import build_fold_score_sets
+
+TURNER_TABLES = ("tm_hairpin", "tm_multibranch", "dangle5", "dangle3",
+                 "tm_interior", "tm_1xmany", "tm_2x3")
+CONTRA_TABLES = ("helix_close_scores", "terminal_mismatch_scores",
+                 "dangling_scores_left", "dangling_scores_right",
+                 "basepair_scores")
 
 
-@pytest.fixture
-def force_onehot(monkeypatch):
-    monkeypatch.setattr(lut, "_use_onehot", lambda: True)
-
-
-def test_lookup_onehot_matches_gather(force_onehot):
-    rng = np.random.default_rng(0)
-    table = jnp.asarray(rng.normal(size=(5, 5, 5)).astype(np.float32))
-    idx = [jnp.asarray(rng.integers(0, 5, size=(9, 13))) for _ in range(3)]
-    got = np.asarray(lut.lookup(table, *idx))
-    want = np.asarray(table)[tuple(np.asarray(x) for x in idx)]
-    np.testing.assert_array_equal(got, want)
+def _table(model, name):
+    tbl = (S.turner_table_pytree() if model == "turner"
+           else S.contra_table_pytree(build_fold_score_sets()))
+    return tbl[name]
 
 
 @pytest.mark.parametrize(
-    "shape,ni,perm",
-    [
-        ((5, 5), 1, None),
-        ((5, 5), 1, (1, 0)),
-        ((5, 5, 5, 5), 2, (0, 2, 1, 3)),
-        ((5, 5, 5, 5, 5, 5), 3, (0, 2, 4, 1, 3, 5)),
-        ((5, 5, 5, 5, 5, 5, 5), 4, (1, 3, 4, 6, 0, 2, 5)),
-        ((5, 5, 5, 5, 5, 5, 5, 5), 4, (0, 2, 4, 6, 1, 3, 5, 7)),
-    ],
+    "model,name",
+    [("turner", t) for t in TURNER_TABLES]
+    + [("contra", t) for t in CONTRA_TABLES],
 )
-def test_sep_lookup_onehot_matches_gather(force_onehot, shape, ni, perm):
-    rng = np.random.default_rng(len(shape))
-    table = jnp.asarray(rng.normal(size=shape).astype(np.float32))
-    nd = len(shape)
-    P, Q = 17, 23
-    i_parts = tuple(jnp.asarray(rng.integers(0, 5, size=P)) for _ in range(ni))
-    j_parts = tuple(
-        jnp.asarray(rng.integers(0, 5, size=Q)) for _ in range(nd - ni)
-    )
-    got = np.asarray(lut.sep_lookup(table, i_parts, j_parts, perm=perm))
-    t = np.asarray(table)
-    if perm is not None:
-        t = np.transpose(t, perm)
-    want = t[
-        tuple(np.asarray(x)[:, None] for x in i_parts)
-        + tuple(np.asarray(x)[None, :] for x in j_parts)
-    ]
-    assert got.shape == (P, Q)
+def test_lookup_is_plain_indexing(model, name):
+    table = np.asarray(_table(model, name))
+    rng = np.random.default_rng(table.size)
+    # index arrays of the precompute's broadcast shapes: (N, 1) rows
+    # against (1, N) or (N, N) columns
+    idx = [rng.integers(0, s, size=(12, 1)) for s in table.shape[:1]]
+    idx += [rng.integers(0, s, size=(12, 12)) for s in table.shape[1:]]
+    got = np.asarray(lut.lookup(jnp.asarray(table), *idx))
+    want = table[tuple(np.broadcast_arrays(*idx))]
+    assert got.shape == (12, 12)
     np.testing.assert_array_equal(got, want)
 
 
-def test_sep_lookup_fallback_matches_gather(monkeypatch):
-    # the advanced-indexing fallback path must agree too
-    monkeypatch.setattr(lut, "_use_onehot", lambda: False)
-    rng = np.random.default_rng(3)
-    table = jnp.asarray(rng.normal(size=(5, 5, 5, 5)).astype(np.float32))
-    i_parts = tuple(jnp.asarray(rng.integers(0, 5, size=8)) for _ in range(2))
-    j_parts = tuple(jnp.asarray(rng.integers(0, 5, size=11)) for _ in range(2))
-    got = np.asarray(lut.sep_lookup(table, i_parts, j_parts, perm=(0, 2, 1, 3)))
-    t = np.transpose(np.asarray(table), (0, 2, 1, 3))
-    want = t[
-        tuple(np.asarray(x)[:, None] for x in i_parts)
-        + tuple(np.asarray(x)[None, :] for x in j_parts)
-    ]
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("P,Q", [(8, 8), (16, 16), (16, 24), (13, 21)])
-def test_unskew_pq_matches_explicit(P, Q):
-    rng = np.random.default_rng(P + Q)
-    M = jnp.asarray(rng.normal(size=(P, Q)).astype(np.float32))
-    for fill in (NEG_INF, 0.0):
-        got = np.asarray(diag.unskew_pq(M, fill))
-        want = np.full((P, Q), fill, dtype=np.float32)
-        m = np.asarray(M)
-        for p in range(P):
-            for c in range(p, Q):
-                want[p, c] = m[p, c - p]
-        np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("P,Q", [(8, 8), (16, 16), (16, 24), (13, 21)])
-def test_skew_pq_matches_explicit(P, Q):
-    rng = np.random.default_rng(P * Q)
-    M = jnp.asarray(rng.normal(size=(P, Q)).astype(np.float32))
-    for fill in (NEG_INF, 0.0):
-        got = np.asarray(diag.skew_pq(M, fill))
-        want = np.full((P, Q), fill, dtype=np.float32)
-        m = np.asarray(M)
-        for p in range(P):
-            for d in range(Q - p):
-                want[p, d] = m[p, p + d]
-        np.testing.assert_array_equal(got, want)
+def test_lookup_rejects_wrong_index_count():
+    with pytest.raises(ValueError, match="2 index arrays for a 3-d table"):
+        lut.lookup(jnp.zeros((5, 5, 5)), jnp.zeros(3, int), jnp.zeros(3, int))

@@ -61,7 +61,7 @@ def test_lse_pair_identity_and_nonfinite():
     """Contract: operands are finite or -inf (the only values DP states take);
     -inf behaves as the additive identity exactly like the reference's
     is_finite skip (utils.rs:580-584).  NaN/+inf operands are out of contract
-    (the full skip logic was dropped for VPU throughput)."""
+    (the full skip logic was dropped for elementwise throughput)."""
     neg_inf = np.float32(-np.inf)
     assert np.asarray(lse_pair(neg_inf, neg_inf)) == neg_inf
     assert np.asarray(lse_pair(neg_inf, np.float32(1.5))) == np.float32(1.5)

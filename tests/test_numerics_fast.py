@@ -62,7 +62,7 @@ def test_fast_lse_pair_semantics(fast_mode):
     assert float(numerics.lse_pair(NEG_INF, 1.5)) == 1.5
     assert float(numerics.lse_pair(2.5, NEG_INF)) == 2.5
     got = float(numerics.lse_pair(0.3, -0.9))
-    # TPU hardware transcendentals are approximate (~1e-4 abs in log space)
+    # hardware transcendentals are approximate (~1e-4 abs in log space)
     assert abs(got - np.logaddexp(0.3, -0.9)) < 3e-4
     assert float(numerics.expf(NEG_INF)) == 0.0
 

@@ -2,7 +2,7 @@
 
 This is the ground-truth anchor of the whole test pyramid: the NumPy oracle's
 recurrences are checked against literal enumeration of every secondary
-structure; the TPU implementation is then checked against the oracle.
+structure; the JAX implementation is then checked against the oracle.
 """
 
 import numpy as np

@@ -27,40 +27,18 @@ Comparison contract (matching `/root/reference/src/bin/mccaskill_algo.rs:94-113`
 """
 
 import os
-import re
 import subprocess
 import sys
 
 import pytest
+
+from rna_algos_tpu.utils.output import parse_triples, triples_max_diff
 
 HERE = os.path.dirname(__file__)
 REF_DIR = os.path.join(HERE, "golden", "reference_rust")
 FASTA = os.path.join(HERE, "..", "assets", "sampled_trnas.fa")
 
 BPP_ATOL = 1e-6
-
-
-def _parse_triples(text):
-    """Parse reference CLI output into {record_id: {(i, j): p}}.
-
-    Record ids are whatever follows '>' (an index for mccaskill, an
-    'i,j' pair-id for durbin); triples are 'i,j,p ' tokens.
-    """
-    out = {}
-    cur = None
-    for line in text.splitlines():
-        line = line.strip()
-        if not line or line.startswith("#"):
-            continue
-        if line.startswith(">"):
-            cur = line[1:]
-            out[cur] = {}
-            continue
-        for tok in line.split():
-            m = re.match(r"^(\d+),(\d+),([-+0-9.eENaninf]+)$", tok)
-            assert m, (cur, tok)
-            out[cur][(int(m.group(1)), int(m.group(2)))] = float(m.group(3))
-    return out
 
 
 def _run_cli(mod, argv):
@@ -73,19 +51,7 @@ def _run_cli(mod, argv):
 
 
 def _diff_triples(ref, got):
-    assert set(ref) == set(got), (
-        "record-id sets differ",
-        sorted(set(ref) ^ set(got))[:10],
-    )
-    worst = 0.0
-    for rid in ref:
-        rpairs, gpairs = ref[rid], got[rid]
-        assert set(rpairs) == set(gpairs), (
-            rid, sorted(set(rpairs) ^ set(gpairs))[:10],
-        )
-        for key, p in rpairs.items():
-            worst = max(worst, abs(p - gpairs[key]))
-    assert worst <= BPP_ATOL, worst
+    assert triples_max_diff(ref, got) <= BPP_ATOL
 
 
 @pytest.mark.parametrize("model,flag", [("turner", []), ("contra", ["-c"])])
@@ -99,8 +65,8 @@ def test_reference_mccaskill_bpps(tmp_path, model, flag):
         ["-i", FASTA, "-o", str(out)] + flag,
     )
     with open(ref_file) as f:
-        ref = _parse_triples(f.read())
-    got = _parse_triples(out.read_text())
+        ref = parse_triples(f.read())
+    got = parse_triples(out.read_text())
     _diff_triples(ref, got)
 
 
@@ -111,8 +77,8 @@ def test_reference_durbin_probs(tmp_path):
     out = tmp_path / "out.txt"
     _run_cli("rna_algos_tpu.cli.durbin", ["-i", FASTA, "-o", str(out)])
     with open(ref_file) as f:
-        ref = _parse_triples(f.read())
-    got = _parse_triples(out.read_text())
+        ref = parse_triples(f.read())
+    got = parse_triples(out.read_text())
     _diff_triples(ref, got)
 
 
@@ -123,8 +89,8 @@ C_BASELINE_DIR = os.path.join(HERE, "golden", "c_baseline")
 # reductions into trees), so the bound is cubic-amplified float
 # re-association — NOT the 1e-6 a deterministic same-binary Rust drop would
 # get.  Measured worst diff 2.0e-4 at tRNA scale, consistent with the
-# cubics' documented ~2e-3 drift at n=245 (BASELINE.md "Accuracy at long
-# n"); budget matches the 5e-4 golden budget for the numerics tiers.
+# cubics' drift from float64 truth at long n (tests/test_longn_numerics.py);
+# budget matches the 5e-4 golden budget for the numerics tiers.
 C_BASELINE_ATOL = 5e-4
 
 
@@ -155,16 +121,9 @@ def test_c_baseline_socket_selftest(tmp_path, model, flag):
     finally:
         numerics.set_mode(prev)
     with open(ref_file) as f:
-        ref = _parse_triples(f.read())
-    got = _parse_triples(out.read_text())
-    assert set(ref) == set(got)
-    worst = 0.0
-    for rid in ref:
-        assert set(ref[rid]) == set(got[rid]), (
-            rid, sorted(set(ref[rid]) ^ set(got[rid]))[:10],
-        )
-        for key, p in ref[rid].items():
-            worst = max(worst, abs(p - got[rid][key]))
+        ref = parse_triples(f.read())
+    got = parse_triples(out.read_text())
+    worst = triples_max_diff(ref, got)
     assert worst <= C_BASELINE_ATOL, worst
 
 
@@ -188,16 +147,9 @@ def test_c_baseline_durbin_socket_selftest(tmp_path):
     finally:
         numerics.set_mode(prev)
     with open(ref_file) as f:
-        ref = _parse_triples(f.read())
-    got = _parse_triples(out.read_text())
-    assert set(ref) == set(got)
-    worst = 0.0
-    for rid in ref:
-        assert set(ref[rid]) == set(got[rid]), (
-            rid, sorted(set(ref[rid]) ^ set(got[rid]))[:10],
-        )
-        for key, p in ref[rid].items():
-            worst = max(worst, abs(p - got[rid][key]))
+        ref = parse_triples(f.read())
+    got = parse_triples(out.read_text())
+    worst = triples_max_diff(ref, got)
     assert worst <= C_BASELINE_ATOL, worst
 
 
